@@ -6,7 +6,7 @@ delta with two O(N^2) one-vs-all conflict scans, accept with probability
 min(1, exp(-beta * dE)), track best state and (optionally) early-stop after
 ``patience`` steps without a new best.
 
-TPU redesign:
+Design:
   * the whole chain is a ``lax.scan`` over steps — one compiled program, no
     Python in the loop;
   * delta-E is O(1): 24 gathers into the line-family count table
@@ -88,11 +88,12 @@ def init_carry(chain_key, spec: ChainSpec, heights0=None) -> BoardCarry:
     )
 
 
-def _step(carry: BoardCarry, step, spec: ChainSpec) -> BoardCarry:
+def _step(carry: BoardCarry, step, spec: ChainSpec, scale=None) -> BoardCarry:
     """One Metropolis proposal for a single chain.
 
     ``step`` may exceed n_steps - 1 (tail padding of the last chunk); such
-    steps are inert.
+    steps are inert.  ``scale`` (a float32 scalar or None) multiplies the
+    scheduled beta — the chain's ladder level under parallel tempering.
     """
     N = spec.N
     key = jax.random.fold_in(carry.step_base, step)
@@ -116,6 +117,8 @@ def _step(carry: BoardCarry, step, spec: ChainSpec) -> BoardCarry:
         )
 
     beta = spec.schedule(step)
+    if scale is not None:
+        beta = beta * scale
     # accept prob = min(1, exp(-beta * dE)); u < exp(...) suffices since u < 1.
     accept = jax.random.uniform(k_u) < jnp.exp(-beta * d_e.astype(jnp.float32))
 
@@ -170,20 +173,24 @@ def _step(carry: BoardCarry, step, spec: ChainSpec) -> BoardCarry:
 
 
 @functools.partial(jax.jit, static_argnames=("spec", "n_outer"))
-def run_segment(carry: BoardCarry, start_outer, spec: ChainSpec, n_outer: int):
+def run_segment(carry: BoardCarry, start_outer, spec: ChainSpec, n_outer: int,
+                beta_scale=None):
     """Advance a batch of chains by ``n_outer`` history chunks.
 
     Each chunk is ``spec.history_stride`` fused steps; the energy after each
     chunk is emitted as one history point.  Returns (carry, (n_outer, C)
     energies).  ``start_outer`` is dynamic so every segment of a long run
-    reuses one compiled program.
+    reuses one compiled program.  ``beta_scale`` is an optional (C,) float32
+    row: chain c then anneals at ``spec.schedule(step) * beta_scale[c]``
+    (a row of ones reproduces the unscaled run bitwise).
     """
     stride = spec.history_stride
-    step_batched = jax.vmap(lambda c, s: _step(c, s, spec), in_axes=(0, None))
+    step_batched = jax.vmap(lambda c, s, b: _step(c, s, spec, b),
+                            in_axes=(0, None, 0))
 
     def chunk(c, outer_idx):
         def inner(r, cc):
-            return step_batched(cc, outer_idx * stride + r)
+            return step_batched(cc, outer_idx * stride + r, beta_scale)
 
         c = lax.fori_loop(0, stride, inner, c)
         return c, c.energy

@@ -4,7 +4,7 @@ Reference algorithm (``experiments.py:199-279``): per step, pick a queen
 uniformly, rejection-sample a uniform *unoccupied* cell, evaluate the delta
 with two O(Q) one-vs-all scans, Metropolis-accept.
 
-TPU redesign mirrors :mod:`mcqueens.chain.board` (fused scan, counter-based
+The design mirrors :mod:`mcqueens.chain.board` (fused scan, counter-based
 keys, count-table O(1) delta-E, device-resident stats) with two differences:
 
   * state adds an occupancy bitmap (N^3 bools) replacing the reference's
@@ -110,7 +110,8 @@ def _draw_unoccupied(key, occ, N3: int):
     return cell
 
 
-def _step(carry: Full3DCarry, step, spec: ChainSpec) -> Full3DCarry:
+def _step(carry: Full3DCarry, step, spec: ChainSpec, scale=None) -> Full3DCarry:
+    """One proposal; ``scale`` multiplies the scheduled beta (see board)."""
     N, Q = spec.N, spec.q_eff
     N3 = N * N * N
     key = jax.random.fold_in(carry.step_base, step)
@@ -132,6 +133,8 @@ def _step(carry: Full3DCarry, step, spec: ChainSpec) -> Full3DCarry:
         ) - energy_mod.full3d_conflicts(carry.queens, q_idx, (old[0], old[1], old[2]))
 
     beta = spec.schedule(step)
+    if scale is not None:
+        beta = beta * scale
     accept = jax.random.uniform(k_u) < jnp.exp(-beta * d_e.astype(jnp.float32))
 
     active = jnp.logical_and(~carry.done, step < spec.n_steps)
@@ -184,14 +187,20 @@ def _step(carry: Full3DCarry, step, spec: ChainSpec) -> Full3DCarry:
 
 
 @functools.partial(jax.jit, static_argnames=("spec", "n_outer"))
-def run_segment(carry: Full3DCarry, start_outer, spec: ChainSpec, n_outer: int):
-    """Advance by ``n_outer`` history chunks of ``history_stride`` steps each."""
+def run_segment(carry: Full3DCarry, start_outer, spec: ChainSpec, n_outer: int,
+                beta_scale=None):
+    """Advance by ``n_outer`` history chunks of ``history_stride`` steps each.
+
+    ``beta_scale``: optional (C,) per-chain beta multiplier, as in
+    :func:`mcqueens.chain.board.run_segment`.
+    """
     stride = spec.history_stride
-    step_batched = jax.vmap(lambda c, s: _step(c, s, spec), in_axes=(0, None))
+    step_batched = jax.vmap(lambda c, s, b: _step(c, s, spec, b),
+                            in_axes=(0, None, 0))
 
     def chunk(c, outer_idx):
         def inner(r, cc):
-            return step_batched(cc, outer_idx * stride + r)
+            return step_batched(cc, outer_idx * stride + r, beta_scale)
 
         c = lax.fori_loop(0, stride, inner, c)
         return c, c.energy

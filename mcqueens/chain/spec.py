@@ -12,7 +12,17 @@ from typing import Optional
 
 from mcqueens.core.schedules import Schedule
 
-KERNELS = ("tables", "naive", "pallas", "pallas_shared")
+KERNELS = ("tables", "naive")
+# Kernel names of earlier releases.  They selected fused kernels for Google's
+# tensor processing units (Mosaic compiler) and were removed together with
+# that target; naming one fails with this message instead of "unknown".
+REMOVED_KERNELS = ("pallas", "pallas_shared")
+REMOVED_MESSAGE = (
+    "kernel {!r} was removed: the 'pallas' and 'pallas_shared' kernels (and "
+    "the allow_correlated_runs option) compiled only for tensor processing "
+    "units through the Mosaic compiler.  Use kernel 'tables' (the default) "
+    "or 'naive'."
+)
 MCMC_TYPES = ("board", "full_3d")
 
 
@@ -38,28 +48,16 @@ class ChainSpec:
             reference default by not setting it for full_3d.
         history_stride: record the energy every this many steps (1 = the
             reference's full per-step history).  At pod scale a 5M-step,
-            4096-chain float history cannot be materialized; striding is the
-            TPU-native answer (SURVEY §5.5).
+            4096-chain float history cannot be materialized; striding keeps
+            it on device at a fixed size (SURVEY §5.5).
         n_bins: acceptance-rate bins (the reference's plotting granularity,
             ``experiments.py:643-738``); counters accumulate on device
             instead of materializing per-step accept/reject index lists.
         kernel: "tables" (O(1) incremental delta-E from line-family count
-            tables), "naive" (O(N^2) one-vs-all rescan, the reference
-            algorithm vectorized — kept as a cross-check and fallback),
-            "pallas" (the VMEM-resident fused TPU kernels,
-            :mod:`mcqueens.kernels.metropolis_pallas` /
-            :mod:`mcqueens.kernels.full3d_pallas`; per-chain proposal sites,
-            uses the on-chip PRNG so its streams differ from the threefry
-            kernels), or "pallas_shared" (the throughput tier for both
-            variants: :mod:`mcqueens.kernels.board_shared` for boards —
-            O(N)-work sliced delta-E with the proposal *site* shared per
-            step across each VMEM block — and
-            :mod:`mcqueens.kernels.full3d_shared` for full_3d — shared lazy
-            candidate cell + chunk-held shared mover, one one-vs-all pass
-            per step.  Each chain is still an exact Metropolis chain, but
-            chains within a block are not mutually independent; use for
-            benchmarks/competition/pod-scale runs, not independence-
-            contract sweeps).
+            tables, the default) or "naive" (O(N^2) one-vs-all rescan, the
+            reference algorithm vectorized — the plain reference the fast
+            path is checked against; both draw the same threefry streams,
+            so their trajectories are bitwise equal).
     """
 
     N: int
@@ -74,6 +72,8 @@ class ChainSpec:
     kernel: str = "tables"
 
     def __post_init__(self):
+        if self.kernel in REMOVED_KERNELS:
+            raise ValueError(REMOVED_MESSAGE.format(self.kernel))
         if self.kernel not in KERNELS:
             raise ValueError(f"Unknown kernel: {self.kernel}")
         if self.mcmc_type not in MCMC_TYPES:
@@ -81,8 +81,7 @@ class ChainSpec:
         if (self.mcmc_type == "full_3d"
                 and self.Q is not None and self.Q >= self.N ** 3):
             # Rejection sampling of an unoccupied cell requires a free cell;
-            # all kernels (pallas included — exact while_loop cleanup after
-            # the unrolled attempts) accept any occupancy below 1.
+            # any occupancy below 1 is accepted.
             raise ValueError("full_3d requires Q < N^3 (a free cell must "
                              "exist for the move proposal)")
         if self.init_mode not in ("random", "latin", "klarner"):

@@ -2,7 +2,7 @@
 
 The reference materializes per-step energy lists and accept/reject step-index
 lists per run, then aggregates at plot time (``experiments.py:576-738``).  At
-TPU scale those lists are replaced by device-side accumulators; this module
+accelerator scale those lists are replaced by device-side accumulators; this module
 turns them into the exact quantities the plots/CSVs need:
 
   * mean +/- std energy curves over runs (``plot_energy_histories``),

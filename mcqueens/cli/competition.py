@@ -42,11 +42,8 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--early-stop-patience", type=int, default=None)
     parser.add_argument("--kernel", default="tables",
-                        choices=("tables", "naive", "pallas",
-                                 "pallas_shared"),
-                        help="pallas_shared: the >=1e9 moves/s throughput "
-                             "kernel (shared proposal sites per chain "
-                             "block — ideal for best-board search)")
+                        help="tables (O(1) count-table delta-E, default) or "
+                             "naive (the reference's O(N^2) rescan)")
     parser.add_argument("--history-stride", type=int, default=None,
                         help="default: full history for <=64 runs, thinned above")
     parser.add_argument("--n-bins", type=int, default=None,
@@ -57,8 +54,7 @@ def main(argv=None) -> int:
                         help="parallel tempering with an L-level geometric "
                              "beta ladder spanning [beta-start, beta-end] "
                              "(constant in time; replica exchange every "
-                             "history-stride steps).  Requires "
-                             "--kernel pallas_shared.  Chain c sits at "
+                             "history-stride steps).  Chain c sits at "
                              "ladder level c %% L.")
     parser.add_argument("--mesh", action="store_true")
     parser.add_argument("--outdir", default=".")
@@ -77,6 +73,13 @@ def main(argv=None) -> int:
                              "best_heights file (i,j,k lines)")
     args = parser.parse_args(argv)
 
+    from mcqueens.chain.spec import (
+        KERNELS, REMOVED_KERNELS, REMOVED_MESSAGE, ChainSpec)
+
+    if args.kernel in REMOVED_KERNELS:
+        parser.error(REMOVED_MESSAGE.format(args.kernel))
+    if args.kernel not in KERNELS:
+        parser.error(f"--kernel must be one of {KERNELS}, got {args.kernel!r}")
     if args.q is not None:
         if args.mcmc_type != "full_3d":
             parser.error("--q only applies to --mcmc-type full_3d "
@@ -94,11 +97,7 @@ def main(argv=None) -> int:
 
     stride = args.history_stride
     if stride is None:
-        if args.kernel in ("pallas", "pallas_shared"):
-            # one kernel launch per history point: keep chunks big
-            stride = max(1, args.n_steps // 1024)
-        else:
-            stride = 1 if args.n_runs <= 64 else max(1, args.n_steps // 1024)
+        stride = 1 if args.n_runs <= 64 else max(1, args.n_steps // 1024)
     # Bin indices are exact int32 on device (spec.py:94); keep the
     # reference's 100-bin granularity whenever it fits and shrink only on
     # >21M-step schedules instead of refusing to run them.
@@ -143,11 +142,8 @@ def main(argv=None) -> int:
         initial_states = np.repeat(state[None], args.n_runs, axis=0)
 
     if args.tempering:
-        from mcqueens.chain.spec import ChainSpec
         from mcqueens.search import tempering as tempering_mod
 
-        if args.kernel != "pallas_shared":
-            parser.error("--tempering requires --kernel pallas_shared")
         spec = ChainSpec(
             N=args.n, n_steps=args.n_steps,
             schedule=build_schedule("constant", args.n_steps,
@@ -186,8 +182,6 @@ def main(argv=None) -> int:
     )
     mesh = mesh_mod.make_mesh() if args.mesh else None
     if initial_states is not None:
-        from mcqueens.chain.spec import ChainSpec
-
         spec = ChainSpec(
             N=args.n, n_steps=args.n_steps, schedule=schedule,
             init_mode=args.init_mode, mcmc_type=args.mcmc_type,

@@ -1,7 +1,7 @@
 """Config-driven experiment CLI (reference ``python experiments.py`` equivalent).
 
 Reads the reference YAML schema verbatim (including the ``betta_scheduling``
-key and 'None'-string patience) plus the optional ``tpu:`` section, then
+key and 'None'-string patience) plus the optional ``sampler:`` section, then
 dispatches to the batched drivers.  Unlike the reference (which ignores argv,
 ``run_montecarlo.sh:22``), the config path and output root are flags:
 
@@ -34,15 +34,15 @@ def main(argv=None) -> int:
 
     cfg = load_config(args.config)
     mesh = None
-    if args.mesh or cfg.tpu.mesh:
-        if isinstance(cfg.tpu.mesh, bool) or args.mesh:
+    if args.mesh or cfg.sampler.mesh:
+        if isinstance(cfg.sampler.mesh, bool) or args.mesh:
             mesh = mesh_mod.make_mesh()
         else:  # int: shard over the first n devices (config.py docstring)
             import jax
 
-            mesh = mesh_mod.make_mesh(jax.devices()[: int(cfg.tpu.mesh)])
+            mesh = mesh_mod.make_mesh(jax.devices()[: int(cfg.sampler.mesh)])
 
-    with profiling.trace(args.profile_dir or cfg.tpu.profile_dir):
+    with profiling.trace(args.profile_dir or cfg.sampler.profile_dir):
         with profiling.timed(f"experiment {cfg.experiment_type}"):
             drivers.run_from_config(cfg, outdir=args.outdir, mesh=mesh)
     return 0

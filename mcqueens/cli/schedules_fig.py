@@ -12,11 +12,7 @@ from __future__ import annotations
 import argparse
 import os
 
-import matplotlib
-
-matplotlib.use("Agg")
-import matplotlib.pyplot as plt  # noqa: E402
-import numpy as np  # noqa: E402
+import numpy as np
 
 
 def main(argv=None) -> int:
@@ -26,6 +22,11 @@ def main(argv=None) -> int:
     parser.add_argument("--beta-end", type=float, default=3.0)
     parser.add_argument("--n-steps", type=int, default=1000)
     args = parser.parse_args(argv)
+
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
 
     from mcqueens.core.schedules import build_schedule
 

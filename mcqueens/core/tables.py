@@ -11,8 +11,7 @@ family of parallel lines through the cube, so
 and the conflicts of a position are a sum of 12 (board) / 13 (full_3d) table
 lookups.  A single-queen move updates 24/26 table entries.  This replaces the
 reference's O(N^2) one-vs-all rescan per proposal (``mcmc_board.py:147-193``)
-with ~24 gathers + scatters — the redesign that makes a billion proposals per
-second per chip possible inside a compiled ``lax.scan``.
+with ~24 gathers + scatters inside a compiled ``lax.scan``.
 
 Families and their line keys (D = 2N-1):
 
@@ -32,13 +31,12 @@ Families and their line keys (D = 2N-1):
 
 All 12 board families are a prefix of the 13 full_3d families, so board code
 and full_3d code share one layout.  Per chain the flat table is
-``2N^2 + 6N(2N-1) + 4(2N-1)^2`` int32s (~29 KB at N=16) — small enough to live
-in VMEM inside a Pallas kernel and cheap to vmap over thousands of chains.
+``2N^2 + 6N(2N-1) + 4(2N-1)^2`` int32s (~29 KB at N=16) — cheap to vmap over
+thousands of chains.
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 N_BOARD_FAMILIES = 12
@@ -127,25 +125,6 @@ def table_energy(table):
     """E = sum over lines of C(count, 2).  Equals the pairwise oracle energy."""
     t = table.astype(jnp.int32)
     return jnp.sum(t * (t - 1) // 2, dtype=jnp.int32)
-
-
-def batch_energies(states, energy_fn, chunk: int = 8192):
-    """``vmap(energy_fn)`` over axis 0, dispatched in <= ``chunk`` slices.
-
-    A whole-batch vmap of a table build materializes a (C, table_size)
-    scatter buffer; once that buffer passes ~2 GiB (C = 65536 boards at
-    N = 18) this TPU backend silently miscompiles it — every chain's initial
-    energy came back as the same wrong constant (measured: 25476 instead of
-    the oracle's 163 for a warm-started board; correct at C <= 32768).
-    Chunked dispatch keeps each buffer a few hundred MiB, which measures
-    correct at every batch size, and unrolls into the same jit program.
-    """
-    C = states.shape[0]
-    if C <= chunk:
-        return jax.vmap(energy_fn)(states)
-    return jnp.concatenate(
-        [jax.vmap(energy_fn)(states[s:s + chunk]) for s in range(0, C, chunk)]
-    )
 
 
 # ---------------------------------------------------------------------------

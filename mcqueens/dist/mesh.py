@@ -1,16 +1,17 @@
-"""Device-mesh plumbing: chain parallelism over ICI/DCN.
+"""Device-mesh plumbing: chain parallelism over the devices of a host.
 
 The reference's only parallelism is independent chains over OS processes with
-pickle transport (``experiments.py:513-533``).  The TPU-native equivalent is
-a 1-D ``chains`` mesh axis: thousands of vmapped chains per chip, sharded
-across devices with ``NamedSharding`` so XLA partitions the (embarrassingly
-parallel) scan with zero mid-run communication.  Cross-chip data appears only
-at the statistics boundary — ``psum``/``pmean`` reductions of curve stats and
-an argmin-gather of the global best board (SURVEY §5.8) — and rides ICI.
+pickle transport (``experiments.py:513-533``).  The equivalent here is a 1-D
+``chains`` mesh axis: thousands of vmapped chains per device, sharded across
+devices with ``NamedSharding`` so XLA partitions the (embarrassingly
+parallel) scan with zero mid-run communication.  Cross-device data appears
+only at the statistics boundary — ``psum``/``pmean`` reductions of curve
+stats and an argmin-gather of the global best board (SURVEY §5.8).  The
+cards of one host are joined all to all, so the mesh stays 1-D.
 
-Multi-host pods: call :func:`init_distributed` first (wraps
+Multi-host runs: call :func:`init_distributed` first (wraps
 ``jax.distributed.initialize``); ``make_mesh`` then spans all global devices
-and the same code scales out over DCN.
+and the same code scales out across hosts.
 """
 
 from __future__ import annotations
@@ -60,65 +61,21 @@ def shard_chains(tree, mesh: Mesh):
     return jax.device_put(tree, chain_sharding(mesh))
 
 
-def pad_chains(n_chains: int, mesh: Mesh | None) -> int:
-    """Round the chain count up to a multiple of the mesh size."""
+def pad_chains(n_chains: int, mesh: Mesh | None, group: int = 1) -> int:
+    """Round the chain count up so every device holds the same whole number
+    of ``group``-chain groups (tempering passes its ladder length, so no
+    replica group straddles two devices)."""
     if mesh is None:
         return n_chains
-    d = mesh.devices.size
-    return -(-n_chains // d) * d
-
-
-def pad_seeds_to_blocks(seeds, mesh: Mesh, block_size_fn):
-    """Pad a seed list so every device owns whole pallas VMEM blocks.
-
-    The block is sized from ONE device's share (``block_size_fn(per_dev)``)
-    and the total is rounded to ``n_dev * k * block`` with distinct
-    follow-on seeds (padded lanes are discarded at slice time).  The single
-    sizing rule shared by ``dist.runner`` and ``search.tempering``.
-
-    Returns ``(padded_seeds, block)``.
-    """
-    seeds = np.asarray(seeds, dtype=np.uint32)
-    n = seeds.shape[0]
-    n_dev = int(mesh.devices.size)
-    per_dev = -(-n // n_dev)
-    block = block_size_fn(per_dev)
-    per_dev = -(-per_dev // block) * block
-    total = per_dev * n_dev
-    if total > n:
-        pad = seeds[-1] + 1 + np.arange(total - n, dtype=np.uint32)
-        seeds = np.concatenate([seeds, pad])
-    return seeds, block
-
-
-def shard_segment_fn(fn, carry_type, mesh: Mesh, *, tempered: bool = False):
-    """``jit(shard_map(...))`` of a kernel segment fn over the chains mesh.
-
-    ``fn`` is ``(carry, start) -> (carry, ys)`` — or, with ``tempered=True``,
-    ``(carry, beta_scale, start) -> (carry, ys)`` where the per-chain beta
-    row is sharded alongside the carry.  Every carry leaf shards on axis 0;
-    ``ys`` is ``(n_outer, C)`` with chains on axis 1.  Used via per-kernel
-    ``functools.cache`` wrappers keyed on (spec, n_outer, mesh).
-    """
-    carry_specs = carry_type(*([P(CHAINS_AXIS)] * len(carry_type._fields)))
-    in_specs = ((carry_specs, P(CHAINS_AXIS), P()) if tempered
-                else (carry_specs, P()))
-    return jax.jit(
-        jax.shard_map(
-            fn,
-            mesh=mesh,
-            in_specs=in_specs,
-            out_specs=(carry_specs, P(None, CHAINS_AXIS)),
-            check_vma=False,
-        )
-    )
+    unit = mesh.devices.size * group
+    return -(-n_chains // unit) * unit
 
 
 def global_best_stats(best_energy, energies):
     """Device-side reduction of the only cross-chain quantities.
 
     Returns (global min best energy, argmin chain id, mean energy).  Runs
-    under jit on sharded inputs; XLA lowers the reductions to ICI collectives.
+    under jit on sharded inputs; XLA lowers the reductions to collectives.
     """
     best_energy = jnp.asarray(best_energy)
     gmin = jnp.min(best_energy)

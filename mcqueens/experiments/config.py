@@ -1,4 +1,4 @@
-"""Config system: accepts the reference YAML schema verbatim, plus a tpu section.
+"""Config system: accepts the reference YAML schema verbatim, plus a sampler section.
 
 Schema (reference ``config.yaml:1-38``, parsed at ``experiments.py:1204-1218``):
 
@@ -18,20 +18,18 @@ Schema (reference ``config.yaml:1-38``, parsed at ``experiments.py:1204-1218``):
     compare_beta_end: {Ns (exactly 2), beta_start_ends, annealing_type,
                        output_path}
 
-New, optional, TPU-native section (all defaulted so reference configs run
-unchanged):
+New, optional section (all defaulted so reference configs run unchanged):
 
-    tpu:
-      kernel: tables | naive | pallas | pallas_shared   # delta-E kernel
+    sampler:
+      kernel: tables | naive              # delta-E kernel
       history_stride: int                 # energy-history thinning
       n_bins: int                         # acceptance bins (default 100)
       mesh: bool | int                    # shard chains over devices
       checkpoint_dir: str | null          # segment checkpoint/resume
       profile_dir: str | null             # jax.profiler trace output
-      allow_correlated_runs: bool         # required (true) to run the
-                                          # pallas_shared kernel under the
-                                          # experiment drivers, whose runs
-                                          # are otherwise independent
+
+Any other top-level key is an error, so a misspelled or retired section
+cannot be silently ignored.  ``yaml`` is imported only by :func:`load_config`.
 """
 
 from __future__ import annotations
@@ -39,7 +37,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
-import yaml
+from mcqueens.chain.spec import KERNELS, REMOVED_KERNELS, REMOVED_MESSAGE
 
 EXPERIMENT_TYPES = (
     "single_N",
@@ -49,15 +47,17 @@ EXPERIMENT_TYPES = (
 )
 
 
+SAMPLER_SECTION = "sampler"
+
+
 @dataclasses.dataclass
-class TpuConfig:
+class SamplerConfig:
     kernel: str = "tables"
     history_stride: int = 1
     n_bins: int = 100
     mesh: Any = False          # False | True (all devices) | int (first n)
     checkpoint_dir: Optional[str] = None
     profile_dir: Optional[str] = None
-    allow_correlated_runs: bool = False  # opt-in for pallas_shared sweeps
 
 
 @dataclasses.dataclass
@@ -65,7 +65,7 @@ class Config:
     raw: dict
     experiment_type: str
     common: dict
-    tpu: TpuConfig
+    sampler: SamplerConfig
 
     def _req(self, key: str):
         # The reference config schema makes these mandatory
@@ -124,6 +124,8 @@ class Config:
 
 
 def load_config(path: str) -> Config:
+    import yaml
+
     with open(path) as f:
         raw = yaml.safe_load(f)
     return parse_config(raw)
@@ -138,24 +140,25 @@ def parse_config(raw: dict) -> Config:
     if experiment_type not in EXPERIMENT_TYPES:
         raise ValueError(f"Unknown experiment_type: {experiment_type}")
     common = raw["common"]
-    tpu_raw = raw.get("tpu", {}) or {}
-    allowed = {f.name for f in dataclasses.fields(TpuConfig)}
-    unknown = set(tpu_raw) - allowed
+    known = {"experiment_type", "common", SAMPLER_SECTION, *EXPERIMENT_TYPES}
+    unknown = set(raw) - known
     if unknown:
-        raise ValueError(f"Unknown tpu config keys: {sorted(unknown)}")
-    tpu = TpuConfig(**tpu_raw)
-    if tpu.kernel == "pallas_shared" and not tpu.allow_correlated_runs:
-        # The four reference experiment types report statistics over
-        # *independent* runs (``/root/reference/experiments.py:513-533``);
-        # the shared-site kernel correlates chains within each VMEM block
-        # (shared proposal-site streams), which silently breaks that
-        # contract.  Throughput work (bench/competition/tempering) opts in
-        # explicitly; parity sweeps must say they mean it.
         raise ValueError(
-            "tpu.kernel 'pallas_shared' shares proposal sites across each "
-            "chain block, so the experiment drivers' runs would NOT be "
-            "statistically independent (the reference's n_runs contract). "
-            "Use kernel 'pallas' or 'tables', or set "
-            "tpu.allow_correlated_runs: true to accept correlated runs."
-        )
-    return Config(raw=raw, experiment_type=experiment_type, common=common, tpu=tpu)
+            f"Unknown top-level config keys: {sorted(unknown)} (run knobs "
+            f"such as kernel, history_stride and mesh live under "
+            f"'{SAMPLER_SECTION}:')")
+    sampler_raw = raw.get(SAMPLER_SECTION, {}) or {}
+    if "allow_correlated_runs" in sampler_raw:
+        raise ValueError(REMOVED_MESSAGE.format("pallas_shared"))
+    allowed = {f.name for f in dataclasses.fields(SamplerConfig)}
+    unknown = set(sampler_raw) - allowed
+    if unknown:
+        raise ValueError(
+            f"Unknown {SAMPLER_SECTION} config keys: {sorted(unknown)}")
+    sampler = SamplerConfig(**sampler_raw)
+    if sampler.kernel in REMOVED_KERNELS:
+        raise ValueError(REMOVED_MESSAGE.format(sampler.kernel))
+    if sampler.kernel not in KERNELS:
+        raise ValueError(f"Unknown kernel: {sampler.kernel}")
+    return Config(raw=raw, experiment_type=experiment_type, common=common,
+                  sampler=sampler)

@@ -1,4 +1,4 @@
-"""Experiment drivers: the four reference experiment types, batched on TPU.
+"""Experiment drivers: the four reference experiment types, batched on device.
 
 Each driver reproduces the reference's sweep structure and *seed derivation
 arithmetic exactly* (SURVEY §2.1) so config-driven sweeps are comparable
@@ -28,16 +28,16 @@ from mcqueens.experiments import plotting
 from mcqueens.experiments.config import Config
 
 
-def _run(tpu, N, n_steps, init_mode, schedule, n_runs, base_seed,
+def _run(sampler, N, n_steps, init_mode, schedule, n_runs, base_seed,
          mcmc_type, early_stop_patience, verbose, mesh=None):
-    """One batched experiment with the tpu-section knobs applied."""
+    """One batched experiment with the sampler-section knobs applied."""
     checkpointer = None
-    if tpu.checkpoint_dir:
+    if sampler.checkpoint_dir:
         from mcqueens.utils.checkpoint import Checkpointer
 
         # one checkpoint per sweep cell: resumable sweeps never collide
         tag = f"{mcmc_type}_N{N}_{init_mode}_{schedule.kind}_s{base_seed}"
-        checkpointer = Checkpointer(tpu.checkpoint_dir, tag=tag)
+        checkpointer = Checkpointer(sampler.checkpoint_dir, tag=tag)
     return runner.run_experiment(
         N=N,
         n_steps=n_steps,
@@ -49,9 +49,9 @@ def _run(tpu, N, n_steps, init_mode, schedule, n_runs, base_seed,
         early_stop_patience=early_stop_patience,
         verbose=verbose,
         mesh=mesh,
-        history_stride=tpu.history_stride,
-        kernel=tpu.kernel,
-        n_bins=tpu.n_bins,
+        history_stride=sampler.history_stride,
+        kernel=sampler.kernel,
+        n_bins=sampler.n_bins,
         checkpointer=checkpointer,
     )
 
@@ -67,7 +67,7 @@ def run_single_n(cfg: Config, outdir: str = ".", mesh=None):
                                                    cfg.n_steps)
         histories, steps, lens, bests = {}, {}, {}, {}
         for schedule, base_seed in schedules:
-            res = _run(cfg.tpu, N, cfg.n_steps, cfg.init_mode, schedule,
+            res = _run(cfg.sampler, N, cfg.n_steps, cfg.init_mode, schedule,
                        cfg.n_runs, base_seed, cfg.mcmc_type,
                        cfg.early_stop_patience, cfg.verbose, mesh)
             histories[schedule.label] = res.energy_history
@@ -84,7 +84,7 @@ def run_single_n(cfg: Config, outdir: str = ".", mesh=None):
         return {"all_histories": histories, "all_best_energies": bests}
 
     schedule, base_seed = sched_mod.schedule_from_common(cfg.common, cfg.n_steps)
-    res = _run(cfg.tpu, N, cfg.n_steps, cfg.init_mode, schedule, cfg.n_runs,
+    res = _run(cfg.sampler, N, cfg.n_steps, cfg.init_mode, schedule, cfg.n_runs,
                base_seed, cfg.mcmc_type, cfg.early_stop_patience, cfg.verbose,
                mesh)
     if cfg.verbose:
@@ -107,19 +107,19 @@ def run_beta_start_end_pairs(
     N, n_steps, beta_start_ends, annealing_type="linear_annealing",
     init_mode="random", n_runs=5, base_seed=0, verbose=True, plot=True,
     out_path=None, out_path_acceptance=None, mcmc_type="board",
-    early_stop_patience=100000, tpu=None, outdir=".", mesh=None,
+    early_stop_patience=100000, sampler=None, outdir=".", mesh=None,
 ):
     """Sweep (beta_start, beta_end) pairs at a fixed annealing type."""
-    from mcqueens.experiments.config import TpuConfig
+    from mcqueens.experiments.config import SamplerConfig
 
-    tpu = tpu or TpuConfig()
+    sampler = sampler or SamplerConfig()
     histories, steps, lens, bests, bins = {}, {}, {}, {}, {}
     for idx, (beta_start, beta_end) in enumerate(beta_start_ends):
         schedule = sched_mod.build_schedule(
             annealing_type, n_steps, beta_start=beta_start, beta_end=beta_end
         )
         pair_seed = base_seed + idx * 1000  # experiments.py:791
-        res = _run(tpu, N, n_steps, init_mode, schedule, n_runs, pair_seed,
+        res = _run(sampler, N, n_steps, init_mode, schedule, n_runs, pair_seed,
                    mcmc_type, early_stop_patience, verbose, mesh)
         label = f"beta: {beta_start}->{beta_end}"
         histories[label] = res.energy_history
@@ -162,7 +162,7 @@ def run_compare_beta_end(
     Ns, n_steps, beta_start_ends, annealing_type="linear_annealing",
     init_mode="random", n_runs=5, base_seed=0, verbose=True, plot=True,
     out_path=None, mcmc_type="board", early_stop_patience=100000,
-    tpu=None, outdir=".", mesh=None,
+    sampler=None, outdir=".", mesh=None,
 ):
     """The pair sweep at two board sizes, plotted side by side."""
     if len(Ns) != 2:
@@ -172,7 +172,7 @@ def run_compare_beta_end(
         n_steps=n_steps, beta_start_ends=beta_start_ends,
         annealing_type=annealing_type, init_mode=init_mode, n_runs=n_runs,
         verbose=verbose, plot=False, mcmc_type=mcmc_type,
-        early_stop_patience=early_stop_patience, tpu=tpu, outdir=outdir,
+        early_stop_patience=early_stop_patience, sampler=sampler, outdir=outdir,
         mesh=mesh,
     )
     res1 = run_beta_start_end_pairs(N=n1, base_seed=base_seed, **common)
@@ -195,12 +195,12 @@ def run_compare_beta_end(
 def measure_min_energy_vs_n(
     Ns, n_steps, schedule, init_modes=("random",), n_runs=5, base_seed=100,
     verbose=True, plot=True, out_path=None, mcmc_type="board",
-    early_stop_patience=100000, tpu=None, outdir=".", mesh=None,
+    early_stop_patience=100000, sampler=None, outdir=".", mesh=None,
 ):
     """Sweep board sizes x init modes; collect best energies/steps-to-best."""
-    from mcqueens.experiments.config import TpuConfig
+    from mcqueens.experiments.config import SamplerConfig
 
-    tpu = tpu or TpuConfig()
+    sampler = sampler or SamplerConfig()
     if isinstance(init_modes, str):
         init_modes = [init_modes]
 
@@ -211,7 +211,7 @@ def measure_min_energy_vs_n(
         steps_mean, steps_std, all_steps = [], [], []
         for idx, N in enumerate(Ns):
             seed = base_seed + 10 * idx + init_offset  # experiments.py:1060-1067
-            res = _run(tpu, N, n_steps, init_mode, schedule, n_runs, seed,
+            res = _run(sampler, N, n_steps, init_mode, schedule, n_runs, seed,
                        mcmc_type, early_stop_patience, verbose, mesh)
             all_mins.append(res.best_energy)
             mins_mean.append(res.best_energy.mean())
@@ -253,7 +253,7 @@ def run_from_config(cfg: Config, outdir: str = ".", mesh=None):
             init_modes=init_modes, n_runs=cfg.n_runs, base_seed=base_seed,
             verbose=cfg.verbose, plot=True, out_path=cfg.output_path,
             mcmc_type=cfg.mcmc_type,
-            early_stop_patience=cfg.early_stop_patience, tpu=cfg.tpu,
+            early_stop_patience=cfg.early_stop_patience, sampler=cfg.sampler,
             outdir=outdir, mesh=mesh,
         )
         if cfg.verbose:
@@ -274,7 +274,7 @@ def run_from_config(cfg: Config, outdir: str = ".", mesh=None):
             out_path=params.get("output_path", cfg.output_path),
             out_path_acceptance=params.get("output_path_acceptance"),
             mcmc_type=cfg.mcmc_type,
-            early_stop_patience=cfg.early_stop_patience, tpu=cfg.tpu,
+            early_stop_patience=cfg.early_stop_patience, sampler=cfg.sampler,
             outdir=outdir, mesh=mesh,
         )
         if cfg.verbose:
@@ -295,7 +295,7 @@ def run_from_config(cfg: Config, outdir: str = ".", mesh=None):
                 "output_path", "figures/energy_history_compare_beta_end.png"
             ),
             mcmc_type=cfg.mcmc_type,
-            early_stop_patience=cfg.early_stop_patience, tpu=cfg.tpu,
+            early_stop_patience=cfg.early_stop_patience, sampler=cfg.sampler,
             outdir=outdir, mesh=mesh,
         )
         if cfg.verbose:

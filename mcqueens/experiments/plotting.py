@@ -14,25 +14,39 @@ Outputs (SURVEY §2 rows 10/13):
 All sinks are rooted at an ``outdir`` (defaults to CWD like the reference).
 Histories are (R, P) arrays plus a ``steps`` axis — with thinned histories the
 step axis carries the true step values, so thinned and full curves overlay.
+
+matplotlib and pandas are imported on first use (:func:`_plt`, :func:`_pd`),
+so importing this module — and the drivers that import it — needs neither.
 """
 
 from __future__ import annotations
 
 import os
 
-import matplotlib
+import numpy as np
 
-matplotlib.use("Agg")
-import matplotlib.pyplot as plt  # noqa: E402
-import numpy as np  # noqa: E402
-import pandas as pd  # noqa: E402
-
-from mcqueens.chain import stats  # noqa: E402
+from mcqueens.chain import stats
 
 COLOR_CYCLE = [
     "#1f77b4", "#ff7f0e", "#2ca02c", "#d62728", "#9467bd",
     "#8c564b", "#e377c2", "#7f7f7f", "#bcbd22", "#17becf",
 ]
+
+
+def _plt():
+    """matplotlib.pyplot on the headless Agg backend."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
+def _pd():
+    import pandas as pd
+
+    return pd
 
 
 def _ensure_dir(path):
@@ -48,6 +62,7 @@ def _results_dir(outdir):
 
 
 def _finish(fig_path, outdir):
+    plt = _plt()
     if fig_path is not None:
         full = os.path.join(outdir, fig_path)
         _ensure_dir(full)
@@ -70,6 +85,8 @@ def plot_energy_histories(histories_by_label, steps_by_label, title,
             break-before-append semantics) instead of frozen tails, and the
             curve/CSV end at the longest surviving run.
     """
+    plt = _plt()
+    pd = _pd()
     plt.figure(figsize=(12, 7))
     for idx, (label, hist) in enumerate(histories_by_label.items()):
         lens = None if lens_by_label is None else lens_by_label.get(label)
@@ -99,6 +116,8 @@ def plot_acceptance_rates_binned(bins_by_label, n_steps, title=None,
     Args:
         bins_by_label: {label: (accept_bins (R, B), total_bins (R, B))}.
     """
+    plt = _plt()
+    pd = _pd()
     plt.figure(figsize=(12, 7))
     for idx, (label, (acc, tot)) in enumerate(bins_by_label.items()):
         n_bins = np.asarray(acc).shape[1]
@@ -136,6 +155,7 @@ def plot_energy_histories_side_by_side(
     the reference's default ``compare_beta_end`` experiment crashes passing
     them (SURVEY §2.1).
     """
+    plt = _plt()
     if schedule_labels is None:
         schedule_labels = list(histories_n1.keys())
     if annealing_type or init_mode:
@@ -185,6 +205,8 @@ def plot_min_energy_vs_n(ns, results_by_init, out_path=None, outdir="."):
         results_by_init: {init_mode: dict with mean/std arrays as produced by
             drivers.measure_min_energy_vs_N}.
     """
+    plt = _plt()
+    pd = _pd()
     ns_arr = np.asarray(ns)
     init_modes = list(results_by_init.keys())
     colors = plt.cm.tab10(np.linspace(0, 1, len(init_modes)))

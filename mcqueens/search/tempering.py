@@ -1,4 +1,4 @@
-"""Parallel tempering (replica exchange) over the shared-site kernels.
+"""Parallel tempering (replica exchange) over the XLA samplers.
 
 A beyond-reference search capability: the reference anneals independent
 chains (``/root/reference/experiments.py:282-376``); simulated annealing gets
@@ -6,26 +6,25 @@ trapped in deep local minima (its own report shows constant/logarithmic
 schedules trapping, report section IV.B).  Parallel tempering runs a ladder
 of inverse temperatures simultaneously and lets configurations migrate
 between levels, so cold chains inherit basin-hopping moves discovered by hot
-ones.  On TPU this is nearly free: chains are lanes, so a ladder level is
-just a per-chain beta scale, and the exchange move is a tiny XLA
-select/permute on the (C,) beta vector between kernel segments — states never
-move, only their temperatures do.
+ones.  A ladder level is just a per-chain beta scale of the ordinary
+samplers (``beta_scale`` of :func:`mcqueens.chain.board.run_segment` and
+:func:`mcqueens.chain.full3d.run_segment`), and the exchange move is a small
+select on the (C,) beta vector between segments — states never move, only
+their temperatures do.
 
 Layout: chain ``c`` sits at ladder level ``c % L`` in replica group
-``c // L``.  Every ``history_stride`` steps (one kernel segment) adjacent
-levels in each group attempt a swap with the standard acceptance
-``min(1, exp((beta_a - beta_b) * (E_a - E_b)))``, alternating odd/even pairs
-(deterministic-even-odd scheme).  Swapping *temperatures* rather than states
-keeps the O(N^2) board state (or the full_3d queen planes — both
-``pallas_shared`` variants are supported) resident in VMEM; only the (C,)
-beta row is rewritten.
+``c // L``.  Every ``exchange_interval`` segments (of ``history_stride``
+steps each) adjacent levels in each group attempt a swap with the standard
+acceptance ``min(1, exp((beta_a - beta_b) * (E_a - E_b)))``, alternating
+odd/even pairs (deterministic-even-odd scheme).
 
-Validity with the shared-site kernel: chains in a VMEM block share each
-step's proposal site, but conditioned on the site sequence every chain's
-transition kernel preserves its own Boltzmann law, so the product measure
-over the ladder is stationary for the segment phase; the exchange phase
-preserves the same product measure by detailed balance.  Marginal
-stationarity per level is asserted by ``tests/test_tempering.py``.
+Chains are mutually independent: every chain draws its proposals and accept
+variates from its own seed (``fold_in(chain_key, step)``), with no shared
+draws and no correlation inside any block of chains.  A segment is thus a
+product of per-chain Metropolis kernels, each preserving its own level's
+Boltzmann law, and the exchange phase preserves the same product measure by
+detailed balance.  Marginal stationarity per level is asserted by
+``tests/test_tempering.py``.
 """
 
 from __future__ import annotations
@@ -38,7 +37,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from mcqueens.chain.spec import ChainSpec
-from mcqueens.kernels import prng as kprng
+from mcqueens.core import rng as rng_mod
 
 _GROUP_K = np.int32(np.uint32(0xB5297A4D))  # group-id stride
 _PAIR_K = np.int32(np.uint32(0x1B873593))   # pair-id stride
@@ -60,7 +59,7 @@ def round_key(swap_seed: int, round_idx: int):
     A pure function of (swap_seed, round) so resumed runs replay the same
     swap stream without checkpointing RNG state.
     """
-    mixed = (np.uint64(np.uint32(swap_seed)) * np.uint64(np.uint32(kprng._CHAIN_K))
+    mixed = (np.uint64(np.uint32(swap_seed)) * np.uint64(np.uint32(rng_mod.SEED_K))
              + np.uint64(np.uint32(round_idx)) * np.uint64(np.uint32(_ROUND_K)))
     return np.int32(np.uint32(mixed & np.uint64(0xFFFFFFFF)))
 
@@ -74,7 +73,7 @@ def exchange(betas, energies, rkey, n_levels: int, phase: int):
             ``c % n_levels`` of group ``c // n_levels``.  Any tail chains
             beyond the last full group keep their beta untouched.
         energies: (C,) current energies (the exact incremental energies the
-            kernels carry — no recompute needed).
+            samplers carry — no recompute needed).
         rkey: int32 sweep counter (see :func:`round_key`).  Accept draws are
             counter-hashed per (group, pair), so a group's swap decision is
             independent of the total chain count and of any mesh layout —
@@ -99,14 +98,14 @@ def exchange(betas, energies, rkey, n_levels: int, phase: int):
     pids = jnp.asarray(lo, jnp.int32)[None, :]
     # The salt keeps the trivial input 0 away from lowbias32's zero fixed
     # point (hash(0) == 0 would make group 0's first draw exactly 0.0).
-    w = kprng.lowbias32(
-        kprng.lowbias32(jnp.int32(rkey) ^ (gids * _GROUP_K) ^ _PAIR_K)
+    w = rng_mod.lowbias32(
+        rng_mod.lowbias32(jnp.int32(rkey) ^ (gids * _GROUP_K) ^ _PAIR_K)
         + pids * _PAIR_K
     )
     # Clamp away u == 0 (a 2^-24 event): log-space compare needs u > 0.
     # float32 1e-12 is normal; the distortion (swaps with acceptance below
     # 1e-12 become impossible) is far under the test tolerances.
-    u = jnp.maximum(kprng.uniform01(w), jnp.float32(1e-12))
+    u = jnp.maximum(rng_mod.uniform01(w), jnp.float32(1e-12))
     swap = jnp.log(u) < log_a
     b = b.at[:, lo].set(jnp.where(swap, bh, bl))
     b = b.at[:, hi].set(jnp.where(swap, bl, bh))
@@ -132,10 +131,10 @@ def run_tempered(
     Args:
         seeds: (R,) per-chain integer seeds (R should be a multiple of
             ``len(ladder)`` so every group is complete).
-        spec: chain spec with ``kernel='pallas_shared'`` (either
-            ``mcmc_type``).  ``spec.schedule`` multiplies the ladder:
-            a constant-1 schedule gives plain parallel tempering at the
-            ladder values; an annealing schedule anneals the whole ladder.
+        spec: chain spec of either ``mcmc_type`` and either kernel.
+            ``spec.schedule`` multiplies the ladder: a constant-1 schedule
+            gives plain parallel tempering at the ladder values; an
+            annealing schedule anneals the whole ladder.
         ladder: (L,) ascending beta values (see :func:`geometric_ladder`).
         swap_seed: seed for the exchange accept draws.
         initial_states: optional warm starts — (R, N, N) heights for
@@ -143,16 +142,17 @@ def run_tempered(
             ``'full_3d'``.
         record_betas: also return the per-round (C,) beta assignments
             (memory: rounds x chains floats — small shapes only).
-        exchange_interval: kernel segments (of ``history_stride`` steps each)
+        exchange_interval: segments (of ``history_stride`` steps each)
             between replica-exchange sweeps.  History cadence and swap
             cadence are independent knobs: swaps happen every
             ``exchange_interval * history_stride`` steps while the energy
             history keeps one point per ``history_stride`` steps.
-        mesh: optional 1-D chains mesh; segments run under ``shard_map``
-            (each shard advances its own whole VMEM blocks) and the exchange
-            sweep is shard-local — ladder groups never straddle shards
-            because the per-shard chain count is a multiple of the block
-            size, which must be a multiple of ``len(ladder)``.
+        mesh: optional 1-D chains mesh.  The batch is padded with
+            follow-on seeds (discarded at the end) so every device holds
+            the same whole number of ladder groups: no group straddles two
+            devices, so the exchange sweep stays device-local.  With R a
+            multiple of ``len(ladder)`` the real chains' results equal the
+            unsharded run's bitwise.
         stop_at_energy: optional early-stop target — end the search after
             the first round whose global best energy is <= this value
             (certificate searches pass 0: once a zero-attack placement is
@@ -170,16 +170,12 @@ def run_tempered(
         per-round energy history (chains x rounds+1), wall time, and
         optionally the beta history.
     """
+    from mcqueens.dist import mesh as mesh_mod
     from mcqueens.dist import runner as runner_mod
 
-    if spec.kernel != "pallas_shared":
-        raise ValueError("run_tempered requires kernel='pallas_shared'")
-    if spec.mcmc_type == "board":
-        from mcqueens.kernels import board_shared as kmod
-    else:
-        from mcqueens.kernels import full3d_shared as kmod
     if exchange_interval < 1:
         raise ValueError("exchange_interval must be >= 1")
+    mod = runner_mod.sampler_module(spec)
     ladder = np.asarray(ladder, np.float32)
     n_levels = int(ladder.shape[0])
     seeds = np.asarray(seeds, dtype=np.uint32)
@@ -187,28 +183,20 @@ def run_tempered(
     if initial_states is not None:
         initial_states = runner_mod.validate_initial_states(
             initial_states, spec, n_runs)
+    seeds, initial_states = runner_mod.pad_runs(
+        seeds, initial_states, mesh_mod.pad_chains(n_runs, mesh, n_levels))
 
-    block = None
-    if mesh is not None:
-        from mcqueens.dist import mesh as mesh_mod
+    def place(tree):
+        if mesh is None:
+            return jax.device_put(tree)
+        return mesh_mod.shard_chains(tree, mesh)
 
-        seeds_padded, block = mesh_mod.pad_seeds_to_blocks(
-            seeds, mesh, lambda c: kmod.block_size(c, spec))
-        if block % n_levels:
-            raise ValueError(
-                f"VMEM block size {block} must be a multiple of the ladder "
-                f"length {n_levels} (ladder groups must not straddle "
-                f"devices)")
-    else:
-        seeds_padded = seeds
-    carry = kmod.init_carry_batch(
-        seeds_padded, spec, block=block, initial_states=initial_states)
+    t_setup = time.time()
+    carry = mod.init_carry_batch(
+        place(rng_mod.chain_keys_from_seeds(seeds)), spec, initial_states)
     C = int(carry.energy.shape[0])
     reps = -(-C // n_levels)
-    betas = jnp.asarray(np.tile(ladder, reps)[:C])
-    if mesh is not None:
-        carry = mesh_mod.shard_chains(carry, mesh)
-        betas = jax.device_put(betas, mesh_mod.chain_sharding(mesh))
+    betas = place(jnp.asarray(np.tile(ladder, reps)[:C]))
 
     e0 = np.asarray(carry.energy).reshape(-1)
     history = [e0[None, :]]
@@ -229,23 +217,17 @@ def run_tempered(
                                        fingerprint=fp, n_extras=n_extras)
         if resumed is not None:
             carry, start_round, chunks, extras = resumed
-            betas = jnp.asarray(extras[0])
+            carry = place(carry)
+            betas = place(jnp.asarray(extras[0]))
             if record_betas:
                 betas_hist = [row for row in extras[1]]
-            if mesh is not None:
-                carry = mesh_mod.shard_chains(carry, mesh)
-                betas = jax.device_put(betas, mesh_mod.chain_sharding(mesh))
             history = [np.asarray(c) for c in chunks]
+    setup = time.time() - t_setup
     t0 = time.time()
     for r in range(start_round, n_rounds):
         seg0 = r * exchange_interval
         n_seg = min(exchange_interval, spec.n_outer - seg0)
-        if mesh is None:
-            carry, ys = kmod.run_segment_tempered(
-                carry, betas, np.int32(seg0), spec, n_seg)
-        else:
-            carry, ys = kmod.run_segment_tempered_sharded(
-                carry, betas, np.int32(seg0), spec, n_seg, mesh)
+        carry, ys = mod.run_segment(carry, np.int32(seg0), spec, n_seg, betas)
         history.append(np.asarray(ys))
         if record_betas:
             # The betas under which this round's samples were generated.
@@ -278,19 +260,7 @@ def run_tempered(
                 break
     best_energy = np.asarray(carry.best_energy).reshape(-1)
     wall = time.time() - t0
-
-    if spec.mcmc_type == "board":
-        best_state = np.asarray(carry.best_heights, dtype=np.int64).reshape(
-            -1, spec.N, spec.N)
-        final_state = np.asarray(carry.heights, dtype=np.int64).reshape(
-            -1, spec.N, spec.N)
-    else:
-        best_state = np.stack(
-            [np.asarray(carry.best_qi), np.asarray(carry.best_qj),
-             np.asarray(carry.best_qk)], axis=-1)
-        final_state = np.stack(
-            [np.asarray(carry.qi), np.asarray(carry.qj),
-             np.asarray(carry.qk)], axis=-1)
+    final_state, best_state = runner_mod.carry_states(carry, spec)
 
     s = slice(0, n_runs)
     out = {
@@ -302,6 +272,8 @@ def run_tempered(
         "betas": np.asarray(betas)[s],
         "ladder": ladder,
         "wall_time": wall,
+        "setup_time": setup,
+        "n_devices": len(carry.energy.sharding.device_set),
         "proposals": int(np.asarray(carry.total_bins).sum()),
     }
     if record_betas:

@@ -29,9 +29,8 @@ def test_eight_virtual_devices_present():
 
 
 def test_plan_segments_caps_dispatch_work():
-    # The config that reproducibly killed the TPU worker as one execution
-    # (N=18 full_3d: 4096 chains, 2^21 steps, stride 2^15) must now split so
-    # no dispatch exceeds _MAX_SEGMENT_PROPOSALS proposed moves.
+    # A long run (N=18 full_3d: 4096 chains, 2^21 steps, stride 2^15) must
+    # split so no dispatch exceeds _MAX_SEGMENT_PROPOSALS proposed moves.
     n_padded, stride, n_outer = 4096, 1 << 15, 64
     n_segs, seg_outer = runner.plan_segments(n_outer, n_padded, stride)
     assert n_segs > 1

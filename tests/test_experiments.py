@@ -133,13 +133,17 @@ def test_seed_derivations_match_reference_rules(tmp_path):
             )
 
 
-def test_config_none_string_and_unknown_tpu_key():
+def test_config_none_string_and_unknown_sampler_key():
     raw = _base_config("single_N", early_stop_patience="None")
     cfg = parse_config(raw)
     assert cfg.early_stop_patience is None
     raw2 = _base_config("single_N")
-    raw2["tpu"] = {"kernle": "tables"}
-    with pytest.raises(ValueError, match="Unknown tpu config keys"):
+    raw2["sampler"] = {"kernle": "tables"}
+    with pytest.raises(ValueError, match="Unknown sampler config keys"):
+        parse_config(raw2)
+    raw2 = _base_config("single_N")
+    raw2["samplr"] = {"kernel": "tables"}  # misspelled section: not ignored
+    with pytest.raises(ValueError, match="Unknown top-level config keys"):
         parse_config(raw2)
     raw3 = _base_config("single_N")
     raw3["experiment_type"] = "bogus"
@@ -274,13 +278,13 @@ def test_schedules_fig_cli(tmp_path):
 
 
 def test_experiment_with_mesh_and_checkpoint(tmp_path):
-    """tpu: mesh + checkpoint_dir knobs drive sharded, resumable sweeps."""
+    """sampler: mesh + checkpoint_dir knobs drive sharded, resumable sweeps."""
     import yaml
 
     from mcqueens.cli import experiments as exp_cli
 
     raw = _base_config("single_N")
-    raw["tpu"] = {"mesh": True, "checkpoint_dir": str(tmp_path / "ckpt")}
+    raw["sampler"] = {"mesh": True, "checkpoint_dir": str(tmp_path / "ckpt")}
     cfg_path = tmp_path / "cfg.yaml"
     cfg_path.write_text(yaml.safe_dump(raw))
     rc = exp_cli.main(["--config", str(cfg_path), "--outdir", str(tmp_path)])
@@ -293,47 +297,39 @@ def test_experiment_with_mesh_and_checkpoint(tmp_path):
     assert rc == 0
 
 
-def test_experiment_with_pallas_kernel(tmp_path):
+def test_experiment_with_naive_kernel(tmp_path):
     import yaml
-    from jax.experimental.pallas import tpu as pltpu
 
     from mcqueens.cli import experiments as exp_cli
 
     raw = _base_config("single_N")
-    raw["tpu"] = {"kernel": "pallas", "history_stride": 50}
+    raw["sampler"] = {"kernel": "naive", "history_stride": 50}
     cfg_path = tmp_path / "cfg.yaml"
     cfg_path.write_text(yaml.safe_dump(raw))
-    with pltpu.force_tpu_interpret_mode():
-        rc = exp_cli.main(["--config", str(cfg_path), "--outdir", str(tmp_path)])
+    rc = exp_cli.main(["--config", str(cfg_path), "--outdir", str(tmp_path)])
     assert rc == 0
     df_path = tmp_path / "results" / "Schedule.csv"
     assert df_path.exists()
 
 
 def test_competition_tempering_cli(tmp_path):
-    from jax.experimental.pallas import tpu as pltpu
-
     from mcqueens.cli import competition
+    from tests import _oracle
 
-    with pltpu.force_tpu_interpret_mode():
-        rc = competition.main([
-            "--n", "5", "--n-runs", "8", "--n-steps", "200",
-            "--kernel", "pallas_shared", "--tempering", "4",
-            "--beta-start", "0.5", "--beta-end", "3.0",
-            "--history-stride", "50", "--outdir", str(tmp_path),
-        ])
+    rc = competition.main([
+        "--n", "5", "--n-runs", "8", "--n-steps", "200",
+        "--tempering", "4",
+        "--beta-start", "0.5", "--beta-end", "3.0",
+        "--history-stride", "50", "--outdir", str(tmp_path),
+    ])
     assert rc == 0
     files = list((tmp_path / "competition_results").glob("*.txt"))
     assert len(files) == 1
-    # tempering requires the shared-site kernel
-    import pytest
-
-    with pytest.raises(SystemExit):
-        competition.main([
-            "--n", "5", "--n-runs", "8", "--n-steps", "200",
-            "--kernel", "tables", "--tempering", "4",
-            "--outdir", str(tmp_path),
-        ])
+    board = np.zeros((5, 5), np.int64)
+    for line in files[0].read_text().splitlines():
+        i, j, k = map(int, line.split(","))
+        board[i, j] = k
+    _oracle.board_energy(board)  # a well-formed full board export
 
 
 def test_competition_resume_from_exported_board(tmp_path):
@@ -355,20 +351,22 @@ def test_competition_resume_from_exported_board(tmp_path):
     assert len(files) == 1
 
 
-def test_config_pallas_shared_requires_correlation_optin():
-    """The shared-site kernel breaks run independence; configs must opt in."""
+@pytest.mark.parametrize("section", [
+    {"kernel": "pallas"},
+    {"kernel": "pallas_shared"},
+    {"kernel": "tables", "allow_correlated_runs": True},
+])
+def test_config_rejects_removed_kernels(section):
+    """Configs naming a removed kernel or its option fail with the reason."""
     raw = _base_config("single_N")
-    raw["tpu"] = {"kernel": "pallas_shared"}
-    with pytest.raises(ValueError, match="allow_correlated_runs"):
+    raw["sampler"] = section
+    with pytest.raises(ValueError, match="was removed.*tensor processing"):
         parse_config(raw)
-    raw["tpu"]["allow_correlated_runs"] = True
-    cfg = parse_config(raw)
-    assert cfg.tpu.kernel == "pallas_shared"
-    # The independent-site kernels need no opt-in.
-    for kernel in ("tables", "naive", "pallas"):
+    # The supported kernels parse.
+    for kernel in ("tables", "naive"):
         raw2 = _base_config("single_N")
-        raw2["tpu"] = {"kernel": kernel}
-        parse_config(raw2)
+        raw2["sampler"] = {"kernel": kernel}
+        assert parse_config(raw2).sampler.kernel == kernel
 
 
 def test_competition_checkpoint_resume(tmp_path):
@@ -404,18 +402,15 @@ def test_competition_checkpoint_resume(tmp_path):
 def test_competition_full3d_cli(tmp_path):
     """--mcmc-type full_3d: the i,j,k export lists the Q queens and
     round-trips through --resume-from; --tempering works for the variant."""
-    from jax.experimental.pallas import tpu as pltpu
-
     from mcqueens.cli import competition
     from tests import _oracle
 
-    with pltpu.force_tpu_interpret_mode():
-        rc = competition.main([
-            "--n", "5", "--n-runs", "4", "--n-steps", "200",
-            "--mcmc-type", "full_3d", "--kernel", "pallas_shared",
-            "--tempering", "4", "--beta-start", "0.5", "--beta-end", "3.0",
-            "--history-stride", "50", "--outdir", str(tmp_path),
-        ])
+    rc = competition.main([
+        "--n", "5", "--n-runs", "4", "--n-steps", "200",
+        "--mcmc-type", "full_3d", "--kernel", "tables",
+        "--tempering", "4", "--beta-start", "0.5", "--beta-end", "3.0",
+        "--history-stride", "50", "--outdir", str(tmp_path),
+    ])
     assert rc == 0
     exported = sorted((tmp_path / "competition_results").glob("*.txt"))[-1]
     rows = np.asarray(

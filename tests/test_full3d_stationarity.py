@@ -1,8 +1,6 @@
-"""Boltzmann stationarity for the full_3d samplers, all kernel families.
+"""Boltzmann stationarity for the full_3d samplers, both kernels.
 
-VERDICT round-1 weak #5: the full_3d kernels — including the Pallas one with
-its own PRNG family and truncated rejection sampling — had no Boltzmann-law
-test.  Here the state space is enumerable (N=3, Q=2: C(27,2)=351 states,
+Here the state space is enumerable (N=3, Q=2: C(27,2)=351 states,
 energy 0 or 1; P_boltz(E=1|beta=1) = 0.346 vs P_unif = 0.590, so the test has
 power against a broken accept path or a biased proposal).
 """
@@ -12,7 +10,6 @@ import math
 
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from mcqueens.chain.spec import ChainSpec
 from mcqueens.core.schedules import build_schedule
@@ -32,12 +29,8 @@ def _exact_p1(beta: float):
     return w1 / (w0 + w1), n_att / tot
 
 
-@pytest.mark.parametrize("kernel",
-                         ["tables", "naive", "pallas", "pallas_shared"])
+@pytest.mark.parametrize("kernel", ["tables", "naive"])
 def test_full3d_samples_boltzmann_distribution(kernel):
-    # pallas_shared: the lazy shared-candidate + held-mover chain has the
-    # same stationary law (every substep is reversible w.r.t. it); chains
-    # within the block are correlated, which only raises estimator variance.
     N, Q, beta, n_steps, stride = 3, 2, 1.0, 12000, 50
     spec = ChainSpec(
         N=N,
@@ -49,8 +42,7 @@ def test_full3d_samples_boltzmann_distribution(kernel):
         kernel=kernel,
         history_stride=stride,
     )
-    with pltpu.force_tpu_interpret_mode():
-        res = runner.run_chains(5 + np.arange(16, dtype=np.uint32), spec)
+    res = runner.run_chains(5 + np.arange(16, dtype=np.uint32), spec)
 
     p1, p1_unif = _exact_p1(beta)
     burn_points = 2000 // stride

@@ -123,7 +123,7 @@ def _run_reference_full3d(n, n_steps, beta_start, beta_end, sched, seeds,
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-@pytest.mark.parametrize("kernel", ["tables", "pallas"])
+@pytest.mark.parametrize("kernel", ["tables"])
 def test_full3d_equilibrium_matches_reference(kernel):
     """VERDICT r1 Missing #3: the reference's full_3d sampler head-to-head.
 
@@ -134,16 +134,13 @@ def test_full3d_equilibrium_matches_reference(kernel):
     ref = _run_reference_full3d(N, n_steps, beta, beta, "constant",
                                 seeds=range(300, 300 + n_runs),
                                 init_mode="random")
-    from jax.experimental.pallas import tpu as pltpu
-
     spec = ChainSpec(
         N=N, n_steps=n_steps,
         schedule=build_schedule("constant", n_steps, beta_const=beta),
         init_mode="random", mcmc_type="full_3d", kernel=kernel,
         history_stride=100,
     )
-    with pltpu.force_tpu_interpret_mode():
-        res = runner.run_chains(np.arange(n_runs, dtype=np.uint32), spec)
+    res = runner.run_chains(np.arange(n_runs, dtype=np.uint32), spec)
 
     ref_tail = np.mean([r["tail_mean"] for r in ref])
     pts = res.energy_history.shape[1]

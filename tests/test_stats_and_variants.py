@@ -75,18 +75,15 @@ def test_full3d_with_custom_queen_count(kernel):
     assert (res.best_energy <= res.energy_history[:, 0]).all()
 
 
-def test_full3d_pallas_with_custom_queen_count():
-    from jax.experimental.pallas import tpu as pltpu
-
+def test_full3d_naive_with_custom_queen_count():
     spec = ChainSpec(
         N=4, n_steps=300, Q=10,
         schedule=build_schedule("linear_annealing", 300, beta_start=0.5,
                                 beta_end=4.0),
-        init_mode="random", mcmc_type="full_3d", kernel="pallas",
+        init_mode="random", mcmc_type="full_3d", kernel="naive",
         history_stride=50,
     )
-    with pltpu.force_tpu_interpret_mode():
-        res = runner.run_chains(np.arange(2, dtype=np.uint32), spec)
+    res = runner.run_chains(np.arange(2, dtype=np.uint32), spec)
     for r in range(2):
         assert res.final_energy[r] == _oracle.full3d_energy(res.final_state[r])
         cells = {tuple(q) for q in res.final_state[r].tolist()}
@@ -106,9 +103,13 @@ def test_spec_validation_errors():
     with pytest.raises(ValueError, match="N must be"):
         ChainSpec(N=1, n_steps=10, schedule=sched)
     # A free cell must exist for the full_3d move proposal (any kernel);
-    # any Q < N^3 is accepted since the pallas sampler became exact.
+    # any Q < N^3 is accepted.
     with pytest.raises(ValueError, match="free cell"):
         ChainSpec(N=3, n_steps=10, schedule=sched, mcmc_type="full_3d",
                   Q=27)
     ChainSpec(N=3, n_steps=10, schedule=sched, mcmc_type="full_3d",
-              kernel="pallas", Q=26)  # occupancy ~0.96: accepted
+              kernel="naive", Q=26)  # occupancy ~0.96: accepted
+    # Removed kernel names say why they are gone.
+    for kernel in ("pallas", "pallas_shared"):
+        with pytest.raises(ValueError, match="was removed"):
+            ChainSpec(N=4, n_steps=10, schedule=sched, kernel=kernel)

@@ -1,10 +1,11 @@
 """Parallel tempering tests: exchange rule, invariants, per-level marginals.
 
 The tempered sampler must (a) leave each group's beta multiset invariant,
-(b) keep the kernels' incremental energies exact, and (c) leave each ladder
+(b) keep the samplers' incremental energies exact, and (c) leave each ladder
 level's marginal distribution Boltzmann at that level's beta — the defining
 property of replica exchange (states swap temperature without corrupting
-either level's law).
+either level's law).  Tempering runs on the ordinary XLA samplers through
+their per-chain ``beta_scale`` row.
 """
 
 import itertools
@@ -12,25 +13,12 @@ import itertools
 import numpy as np
 import pytest
 
-import jax
 import jax.numpy as jnp
-from jax.experimental.pallas import tpu as pltpu
 
 from mcqueens.chain.spec import ChainSpec
 from mcqueens.core.schedules import build_schedule
 from mcqueens.search import tempering
 from tests import _oracle
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _fresh_executable_space():
-    # This module runs last in the suite, when the process already holds
-    # ~500 live compiled executables; at that pressure the XLA:CPU compiler
-    # reproducibly segfaulted compiling test_tempered_full3d_invariants'
-    # interpret-mode program (it compiles fine in isolation or after a
-    # clear).  Dropping live executables is cheap here: the persistent
-    # compile cache makes re-loads fast.
-    jax.clear_caches()
 
 
 def _spec(**kw):
@@ -40,7 +28,7 @@ def _spec(**kw):
         schedule=build_schedule("constant", 400, beta_const=1.0),
         init_mode="random",
         mcmc_type="board",
-        kernel="pallas_shared",
+        kernel="tables",
         history_stride=50,
     )
     defaults.update(kw)
@@ -91,9 +79,9 @@ def test_exchange_phase_pairs_and_tail():
     np.testing.assert_allclose(out, [1.0, 3.0, 2.0, 1.0, 3.0, 2.0, 7.0])
 
 
-def test_exchange_preserves_group_multisets():
+@pytest.mark.parametrize("n_levels,groups", [(2, 3), (5, 7), (16, 4)])
+def test_exchange_preserves_group_multisets(n_levels, groups):
     rng = np.random.default_rng(3)
-    n_levels, groups = 5, 7
     ladder = tempering.geometric_ladder(0.2, 5.0, n_levels)
     betas = jnp.asarray(np.tile(ladder, groups))
     for r in range(20):
@@ -108,9 +96,8 @@ def test_exchange_preserves_group_multisets():
 def test_tempered_run_energy_invariants():
     spec = _spec(n_steps=300, history_stride=50)
     ladder = tempering.geometric_ladder(0.3, 3.0, 4)
-    with pltpu.force_tpu_interpret_mode():
-        out = tempering.run_tempered(
-            np.arange(8, dtype=np.uint32), spec, ladder, record_betas=True)
+    out = tempering.run_tempered(
+        np.arange(8, dtype=np.uint32), spec, ladder, record_betas=True)
     for r in range(8):
         assert out["final_energy"][r] == _oracle.board_energy(
             out["final_state"][r])
@@ -129,9 +116,8 @@ def test_tempered_run_deterministic():
     spec = _spec(n_steps=200, history_stride=50)
     ladder = tempering.geometric_ladder(0.5, 2.0, 2)
     seeds = np.arange(4, dtype=np.uint32)
-    with pltpu.force_tpu_interpret_mode():
-        a = tempering.run_tempered(seeds, spec, ladder, swap_seed=5)
-        b = tempering.run_tempered(seeds, spec, ladder, swap_seed=5)
+    a = tempering.run_tempered(seeds, spec, ladder, swap_seed=5)
+    b = tempering.run_tempered(seeds, spec, ladder, swap_seed=5)
     np.testing.assert_array_equal(a["energy_history"], b["energy_history"])
     np.testing.assert_array_equal(a["betas"], b["betas"])
     np.testing.assert_array_equal(a["final_state"], b["final_state"])
@@ -147,18 +133,16 @@ def test_tempered_early_stop():
     spec = _spec(n_steps=300, history_stride=50)
     ladder = tempering.geometric_ladder(0.3, 3.0, 3)
     seeds = np.arange(6, dtype=np.uint32)
-    with pltpu.force_tpu_interpret_mode():
-        full = tempering.run_tempered(seeds, spec, ladder, swap_seed=5)
-        stopped = tempering.run_tempered(
-            seeds, spec, ladder, swap_seed=5, stop_at_energy=10**9)
-        never = tempering.run_tempered(
-            seeds, spec, ladder, swap_seed=5, stop_at_energy=-1)
+    full = tempering.run_tempered(seeds, spec, ladder, swap_seed=5)
+    stopped = tempering.run_tempered(
+        seeds, spec, ladder, swap_seed=5, stop_at_energy=10**9)
+    never = tempering.run_tempered(
+        seeds, spec, ladder, swap_seed=5, stop_at_energy=-1)
     # Stopped after round 1: initial energies + one history point.
     assert stopped["energy_history"].shape == (6, 2)
     np.testing.assert_array_equal(stopped["energy_history"],
                                   full["energy_history"][:, :2])
-    # One round of work out of six (counts padded block chains, so compare
-    # against the full run rather than the logical chain count).
+    # One round of work out of six.
     assert stopped["proposals"] * 6 == full["proposals"]
     assert stopped["best_energy"].min() <= 10**9
     for r in range(6):
@@ -171,17 +155,48 @@ def test_tempered_early_stop():
     np.testing.assert_array_equal(never["betas"], full["betas"])
 
 
-def test_tempered_rejects_other_kernels():
-    spec = _spec(kernel="tables")
-    with pytest.raises(ValueError, match="pallas_shared"):
-        tempering.run_tempered(
-            np.arange(4, dtype=np.uint32), spec,
-            tempering.geometric_ladder(0.5, 2.0, 2))
+@pytest.mark.parametrize("mcmc_type", ["board", "full_3d"])
+def test_tempered_naive_equals_tables(mcmc_type):
+    """Both kernels draw the same streams, so tempered runs agree bitwise."""
+    kw = dict(mcmc_type=mcmc_type, N=4, n_steps=200)
+    if mcmc_type == "full_3d":
+        kw["Q"] = 10
+    ladder = tempering.geometric_ladder(0.5, 3.0, 4)
+    seeds = np.arange(8, dtype=np.uint32)
+    a = tempering.run_tempered(seeds, _spec(kernel="tables", **kw), ladder,
+                               swap_seed=2)
+    b = tempering.run_tempered(seeds, _spec(kernel="naive", **kw), ladder,
+                               swap_seed=2)
+    for key in ("energy_history", "final_state", "best_state", "betas"):
+        np.testing.assert_array_equal(a[key], b[key])
 
 
-@pytest.mark.slow
-def test_tempered_marginals_are_boltzmann_per_level():
-    """N=3 enumerable board: each ladder level's marginal obeys its own
+def _exact_laws(mcmc_type, N, Q, betas):
+    """Exact Boltzmann energy laws over every state of an enumerable space:
+    the N^(N^2) boards, or the C(N^3, Q) distinct-cell full_3d placements."""
+    if mcmc_type == "board":
+        states = (np.array(hs).reshape(N, N)
+                  for hs in itertools.product(range(N), repeat=N * N))
+        energy = _oracle.board_energy
+    else:
+        cells = list(itertools.product(range(N), repeat=3))
+        states = (np.array(c) for c in itertools.combinations(cells, Q))
+        energy = _oracle.full3d_energy
+    weights = {b: {} for b in betas}
+    for st in states:
+        e = energy(st)
+        for b in betas:
+            weights[b][e] = weights[b].get(e, 0.0) + np.exp(-b * e)
+    return {b: {e: w / sum(ws.values()) for e, w in ws.items()}
+            for b, ws in weights.items()}
+
+
+@pytest.mark.parametrize("mcmc_type,kernel", [
+    ("board", "tables"), ("board", "naive"),
+    ("full_3d", "tables"), ("full_3d", "naive"),
+])
+def test_tempered_marginals_are_boltzmann_per_level(mcmc_type, kernel):
+    """N=3 enumerable spaces: each ladder level's marginal obeys its own
     Boltzmann law even as configurations migrate between levels.
 
     This is the correctness statement of replica exchange.  A broken swap
@@ -191,29 +206,22 @@ def test_tempered_marginals_are_boltzmann_per_level():
     such mixing.
     """
     N, n_steps, stride = 3, 12000, 50
+    Q = 3 if mcmc_type == "full_3d" else None
     b_hot, b_cold = 0.4, 1.4
     spec = _spec(
         N=N,
         n_steps=n_steps,
         schedule=build_schedule("constant", n_steps, beta_const=1.0),
         history_stride=stride,
+        mcmc_type=mcmc_type,
+        kernel=kernel,
+        Q=Q,
     )
     ladder = np.asarray([b_hot, b_cold], np.float32)
-    with pltpu.force_tpu_interpret_mode():
-        out = tempering.run_tempered(
-            np.arange(64, dtype=np.uint32), spec, ladder,
-            record_betas=True, swap_seed=11)
-
-    # Exact Boltzmann energy laws over the 3^9 board states.
-    weights = {b_hot: {}, b_cold: {}}
-    for hs in itertools.product(range(N), repeat=N * N):
-        e = _oracle.board_energy(np.array(hs).reshape(N, N))
-        for b in (b_hot, b_cold):
-            weights[b][e] = weights[b].get(e, 0.0) + np.exp(-b * e)
-    laws = {
-        b: {e: w / sum(ws.values()) for e, w in ws.items()}
-        for b, ws in weights.items()
-    }
+    out = tempering.run_tempered(
+        np.arange(64, dtype=np.uint32), spec, ladder,
+        record_betas=True, swap_seed=11)
+    laws = _exact_laws(mcmc_type, N, Q, (b_hot, b_cold))
 
     burn = 3000 // stride
     # energy_history[:, r+1] is the sample at the end of round r, generated
@@ -244,11 +252,10 @@ def test_exchange_interval_decouples_swaps_from_history():
     seeds = np.arange(8, dtype=np.uint32)
     spec = _spec(n_steps=400, history_stride=50)  # n_outer = 8
     ladder = tempering.geometric_ladder(0.3, 3.0, 4)
-    with pltpu.force_tpu_interpret_mode():
-        out1 = tempering.run_tempered(seeds, spec, ladder, swap_seed=7,
-                                      record_betas=True)
-        out4 = tempering.run_tempered(seeds, spec, ladder, swap_seed=7,
-                                      record_betas=True, exchange_interval=4)
+    out1 = tempering.run_tempered(seeds, spec, ladder, swap_seed=7,
+                                  record_betas=True)
+    out4 = tempering.run_tempered(seeds, spec, ladder, swap_seed=7,
+                                  record_betas=True, exchange_interval=4)
     # One history point per stride chunk either way.
     assert out1["energy_history"].shape == (8, spec.n_outer + 1)
     assert out4["energy_history"].shape == (8, spec.n_outer + 1)
@@ -264,24 +271,24 @@ def test_exchange_interval_decouples_swaps_from_history():
                 out["final_state"][r])
 
 
-def test_tempered_sharded_matches_unsharded():
-    """The pod path: segments under shard_map, shard-local ladder groups.
+@pytest.mark.parametrize("mcmc_type", ["board", "full_3d"])
+def test_tempered_sharded_matches_unsharded(mcmc_type):
+    """The multi-device path: sharded carry, device-local ladder groups.
 
-    Counter-based chain/site/swap streams make the result a pure function
-    of the seeds, so the 8-device run must reproduce the single-device run
-    bitwise on the real chains (the sharded run pads to whole blocks per
+    Counter-based chain/swap streams make the result a pure function of the
+    seeds, so the 8-device run must reproduce the single-device run bitwise
+    on the real chains (the sharded run pads to whole ladder groups per
     device; group g's swap draws are keyed by g, not by the chain count).
     """
     from mcqueens.dist import mesh as mesh_mod
 
     mesh = mesh_mod.make_mesh()
     seeds = np.arange(8, dtype=np.uint32)
-    spec = _spec(n_steps=200, history_stride=50)
+    kw = {"Q": 10, "N": 4} if mcmc_type == "full_3d" else {}
+    spec = _spec(n_steps=200, history_stride=50, mcmc_type=mcmc_type, **kw)
     ladder = tempering.geometric_ladder(0.5, 3.0, 4)
-    with pltpu.force_tpu_interpret_mode():
-        a = tempering.run_tempered(seeds, spec, ladder, swap_seed=3)
-        b = tempering.run_tempered(seeds, spec, ladder, swap_seed=3,
-                                   mesh=mesh)
+    a = tempering.run_tempered(seeds, spec, ladder, swap_seed=3)
+    b = tempering.run_tempered(seeds, spec, ladder, swap_seed=3, mesh=mesh)
     np.testing.assert_array_equal(a["energy_history"], b["energy_history"])
     np.testing.assert_array_equal(a["best_energy"], b["best_energy"])
     np.testing.assert_array_equal(a["best_state"], b["best_state"])
@@ -296,38 +303,37 @@ def test_tempered_checkpoint_resume_bitwise(tmp_path, monkeypatch):
     restores the round-2 checkpoint (carry + betas; the swap stream needs no
     saved RNG state — it is a pure function of (swap_seed, round)).
     """
-    from mcqueens.kernels import board_shared
+    from mcqueens.chain import board
     from mcqueens.utils.checkpoint import Checkpointer
 
     seeds = np.arange(8, dtype=np.uint32)
     spec = _spec(n_steps=400, history_stride=50)
     ladder = tempering.geometric_ladder(0.3, 3.0, 4)
 
-    with pltpu.force_tpu_interpret_mode():
-        want = tempering.run_tempered(seeds, spec, ladder, swap_seed=7,
-                                      record_betas=True)
+    want = tempering.run_tempered(seeds, spec, ladder, swap_seed=7,
+                                  record_betas=True)
 
-        ckpt = Checkpointer(str(tmp_path), tag="pt")
-        real = board_shared.run_segment_tempered
-        calls = {"n": 0}
+    ckpt = Checkpointer(str(tmp_path), tag="pt")
+    real = board.run_segment
+    calls = {"n": 0}
 
-        def dying(*args, **kw):
-            if calls["n"] >= 2:
-                raise RuntimeError("simulated preemption")
-            calls["n"] += 1
-            return real(*args, **kw)
+    def dying(*args, **kw):
+        if calls["n"] >= 2:
+            raise RuntimeError("simulated preemption")
+        calls["n"] += 1
+        return real(*args, **kw)
 
-        monkeypatch.setattr(board_shared, "run_segment_tempered", dying)
-        with pytest.raises(RuntimeError, match="preemption"):
-            tempering.run_tempered(seeds, spec, ladder, swap_seed=7,
+    monkeypatch.setattr(board, "run_segment", dying)
+    with pytest.raises(RuntimeError, match="preemption"):
+        tempering.run_tempered(seeds, spec, ladder, swap_seed=7,
+                               record_betas=True, checkpointer=ckpt)
+    monkeypatch.setattr(board, "run_segment", real)
+    got = tempering.run_tempered(seeds, spec, ladder, swap_seed=7,
+                                 record_betas=True, checkpointer=ckpt)
+    # A full resume (all rounds already checkpointed) must return the
+    # complete beta history too, not crash or truncate it.
+    again = tempering.run_tempered(seeds, spec, ladder, swap_seed=7,
                                    record_betas=True, checkpointer=ckpt)
-        monkeypatch.setattr(board_shared, "run_segment_tempered", real)
-        got = tempering.run_tempered(seeds, spec, ladder, swap_seed=7,
-                                     record_betas=True, checkpointer=ckpt)
-        # A full resume (all rounds already checkpointed) must return the
-        # complete beta history too, not crash or truncate it.
-        again = tempering.run_tempered(seeds, spec, ladder, swap_seed=7,
-                                       record_betas=True, checkpointer=ckpt)
     np.testing.assert_array_equal(want["energy_history"],
                                   got["energy_history"])
     np.testing.assert_array_equal(want["best_energy"], got["best_energy"])
@@ -341,30 +347,28 @@ def test_tempered_checkpoint_resume_bitwise(tmp_path, monkeypatch):
 
     # A fingerprint mismatch (different ladder) must NOT resume.
     other = tempering.geometric_ladder(0.2, 4.0, 4)
-    with pltpu.force_tpu_interpret_mode():
-        fresh = tempering.run_tempered(seeds, spec, other, swap_seed=7,
-                                       checkpointer=ckpt)
-        plain = tempering.run_tempered(seeds, spec, other, swap_seed=7)
+    fresh = tempering.run_tempered(seeds, spec, other, swap_seed=7,
+                                   checkpointer=ckpt)
+    plain = tempering.run_tempered(seeds, spec, other, swap_seed=7)
     np.testing.assert_array_equal(fresh["energy_history"],
                                   plain["energy_history"])
 
 
 def test_tempered_full3d_invariants():
-    """Round 3: tempering composes with the full_3d shared kernel too."""
+    """Tempering composes with the full_3d sampler too."""
     spec = ChainSpec(
         N=5,
         n_steps=300,
         schedule=build_schedule("constant", 300, beta_const=1.0),
         init_mode="random",
         mcmc_type="full_3d",
-        kernel="pallas_shared",
+        kernel="tables",
         history_stride=50,
     )
     ladder = tempering.geometric_ladder(0.3, 3.0, 4)
-    with pltpu.force_tpu_interpret_mode():
-        out = tempering.run_tempered(
-            np.arange(8, dtype=np.uint32), spec, ladder, swap_seed=5,
-            record_betas=True)
+    out = tempering.run_tempered(
+        np.arange(8, dtype=np.uint32), spec, ladder, swap_seed=5,
+        record_betas=True)
     for r in range(8):
         assert out["final_energy"][r] == _oracle.full3d_energy(
             out["final_state"][r])

@@ -20,7 +20,7 @@ the colder warm-started refinement passes from an existing committed board
 (VERDICT r3 item 8: harden single-protocol floors to the refinement
 standard, or improve them).
 
-Run on the real TPU:
+Run on the GPU:
     python -m tools.full3d_floors_campaign [--sizes 12 14 15]
     python -m tools.full3d_floors_campaign --mcmc-type board --sizes 14 \\
         --refine-from artifacts/competition_results/best_heights_14_*.txt
@@ -59,7 +59,7 @@ def _search(n, seed, beta_start, beta_end, mcmc_type, outdir, resume_from=None,
     argv = [
         "--n", str(n), "--mcmc-type", mcmc_type,
         "--n-runs", str(CHAINS), "--n-steps", str(n_steps),
-        "--kernel", "pallas_shared", "--tempering", str(ladder),
+        "--kernel", "tables", "--tempering", str(ladder),
         "--history-stride", str(STRIDE),
         "--beta-start", str(beta_start), "--beta-end", str(beta_end),
         "--seed", str(seed), "--outdir", outdir,

@@ -79,7 +79,7 @@ def main() -> int:
         schedule=build_schedule("linear_annealing", args.n_steps,
                                 beta_start=args.beta_start,
                                 beta_end=args.beta_end),
-        init_mode=args.init_mode, mcmc_type="board", kernel="pallas",
+        init_mode=args.init_mode, mcmc_type="board", kernel="tables",
         history_stride=max(1, args.n_steps // 256),
     )
     t0 = time.time()

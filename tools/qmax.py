@@ -1,9 +1,9 @@
-"""Hardware campaign: certify the literature Q_max(N,3) values on-TPU.
+"""Device campaign: certify the literature Q_max(N,3) values on the accelerator.
 
 The reference report's Table 1 (p.1, via Kunt) lists the best known maximum
 number of mutually non-attacking queens in the N-cube for N = 3..10:
 4, 7, 13, 21, 32, 48, 67, 91.  The reference never searches below Q = N^2;
-with the sub-N^2 ``--q`` path and the shared-site full_3d kernel we can
+with the sub-N^2 ``--q`` path and the full_3d sampler we can
 re-derive those bounds ourselves:
 
   * at Q = Q_max the annealer must FIND a zero-energy placement
@@ -12,7 +12,7 @@ re-derive those bounds ourselves:
   * at Q = Q_max + 1 the same budget should plateau above zero
     (consistency evidence — not a proof of impossibility).
 
-Run from the repo root on the real TPU: ``python -m tools.qmax``.
+Run from the repo root on the GPU: ``python -m tools.qmax``.
 Escalates the step budget once for any Q_max instance that misses zero.
 Evidence artifact: ``artifacts/qmax/qmax_certification.json``.
 """
@@ -40,7 +40,7 @@ def search(N, Q, n_steps, beta_end, seed=0):
         N=N, n_steps=n_steps,
         schedule=build_schedule("linear_annealing", n_steps,
                                 beta_start=0.5, beta_end=beta_end),
-        init_mode="random", mcmc_type="full_3d", kernel="pallas_shared",
+        init_mode="random", mcmc_type="full_3d", kernel="tables",
         history_stride=max(1, n_steps // 64), Q=Q,
     )
     seeds = np.arange(seed, seed + CHAINS, dtype=np.uint32)
@@ -50,7 +50,7 @@ def search(N, Q, n_steps, beta_end, seed=0):
     r = int(np.argmin(res.best_energy))
     best = np.asarray(res.best_state[r], np.int64)
     e = int(res.best_energy[r])
-    assert e == full3d_energy(best), (N, Q, e)  # oracle on hardware
+    assert e == full3d_energy(best), (N, Q, e)  # oracle on the device result
     return e, best, wall, CHAINS * n_steps
 
 

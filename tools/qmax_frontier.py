@@ -1,4 +1,4 @@
-"""Hardware campaign: bracket Q_max(N, 3) past the literature table.
+"""Device campaign: bracket Q_max(N, 3) past the literature table.
 
 The reference report's Table 1 stops at N = 10 (Q_max = 91).  Two queens
 in the same (i,j) column always attack, so Q_max(N, 3) <= N^2 for every N;
@@ -22,7 +22,7 @@ plus the oracle-verified ``qmax_N*_Q*.txt`` certificates, summarized in
 ``artifacts/RESULTS.md`` (every row re-scored by ``tests/test_citations.py``)
 — not a prose list here that goes stale between campaigns.
 
-Run from the repo root on the real TPU:
+Run from the repo root on the GPU:
 ``python -m tools.qmax_frontier [--n 12] [--start Q0] [--budget-s 1800]``.
 ``--budget-s`` bounds the campaign by wall clock: no new probe starts after
 the budget is spent, the frontier JSON is flushed after *every* probe, and a

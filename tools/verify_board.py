@@ -12,7 +12,7 @@ code with the framework).  Prints one JSON line per file:
 
 Usage:  python -m tools.verify_board artifacts/competition_results/*.txt
 
-Pure CPU/NumPy — safe to run while a TPU job is active.
+Pure CPU/NumPy — safe to run while a device job is active.
 """
 
 from __future__ import annotations
